@@ -22,3 +22,8 @@ def brute_truth(small_db, queries):
     s = np.asarray(batched_tanimoto_scores(jnp.asarray(queries), jnp.asarray(small_db)))
     ids = np.argsort(-s, axis=1, kind="stable")[:, :20]
     return s, ids
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips where torch sees none")
